@@ -40,7 +40,7 @@ def main():
     from gigalens_tpu.profiles.mass.shear import Shear
     from gigalens_tpu.simulator import LensSimulator
 
-    # --quick is sized for a CPU smoke run; the full config wants a TPU
+    # --quick is sized for a CPU smoke run; the full config wants a GPU
     # (each MAP step is bs inversions: ~n_src basis-image convs + an
     # (n_src, npix, n_src) Gram matmul)
     num_pix = 40 if args.quick else 64

@@ -3,7 +3,7 @@
 The script equivalent of the reference's ``jax-demo.ipynb``: build the
 canonical EPL+Shear / SersicEllipse system, generate a noisy synthetic
 observation from a known truth, run MAP -> SVI -> HMC, and report
-reduced-chi2 / R-hat / ESS. Runs on TPU or CPU (pass --cpu).
+reduced-chi2 / R-hat / ESS. Runs on a GPU or the CPU (pass --cpu).
 
 Usage:
     python examples/demo_pipeline.py [--cpu] [--quick]

@@ -62,9 +62,7 @@ prior = Prior(
             ),
             dict(gamma1=gld.Normal(0, 0.05), gamma2=gld.Normal(0, 0.05)),
         ],
-        # lens light included: galaxy-galaxy survey cutouts have it, and the
-        # EPL+Shear + 2x SersicEllipse pattern rides the fused Pallas render
-        # on TPU (simulator._detect_fused_pattern)
+        # lens light included: galaxy-galaxy survey cutouts have it
         lens_light=[
             dict(
                 R_sersic=gld.LogNormal(jnp.log(1.0), 0.15),

@@ -1,9 +1,9 @@
-"""gigalens_tpu — TPU-native Bayesian strong-lensing inference.
+"""gigalens_tpu — Bayesian strong-lensing inference in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of furcelay/gigalens
+A ground-up JAX/XLA rebuild of the capabilities of furcelay/gigalens
 (cluster-lens branch): differentiable batched lens simulation, a probabilistic
 model over images and multiple-image positions, and a MAP -> SVI -> HMC / SMC
-inference pipeline — designed for TPU (single substrate, device-resident
+inference pipeline — designed for one accelerator substrate (device-resident
 optimization loops, mesh sharding over the sample batch, FFT PSF convolution).
 """
 

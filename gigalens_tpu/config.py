@@ -26,10 +26,12 @@ class SimulatorConfig:
         transform_pix2angle: optional 2x2 affine pixel->angle matrix.
         pix_region: optional boolean mask of live native pixels.
         use_fft: legacy PSF switch — True (FFT), False (direct), None (auto).
-        psf_mode: explicit PSF convolution path: "dft" (DFT-by-matmul, MXU,
-            fastest on TPU), "fft" (XLA FFT), "direct" (XLA conv, small
-            kernels), or None (auto: dft on TPU, fft elsewhere, direct for
-            tiny kernels). Overrides use_fft when set.
+        psf_mode: explicit PSF convolution path: "fft" (XLA FFT, cuFFT on
+            a GPU), "direct" (XLA conv at Precision.HIGHEST, small kernels),
+            "dft" (DFT-by-matmul at default precision, which on a GPU runs
+            f32 matmuls in TF32, about three decimal digits), "dft_hi" (the
+            same at Precision.HIGHEST, the f32 variant), or None (auto: fft,
+            direct for tiny kernels). Overrides use_fft when set.
     """
 
     delta_pix: float
@@ -40,10 +42,6 @@ class SimulatorConfig:
     pix_region: Optional[Any] = None
     use_fft: Optional[bool] = None
     psf_mode: Optional[str] = None
-    # fused Pallas deflect+render kernel for the EPL+Shear / 2x SersicEllipse
-    # model family: True, False, or None (auto: on when on TPU and the physical
-    # model matches the fused pattern)
-    use_fused_render: Optional[bool] = None
 
 
 class LensWCS:

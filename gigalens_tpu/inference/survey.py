@@ -14,10 +14,9 @@ pipeline over a whole *catalogue* of observations at once:
     (``sample_hmc(n_groups=S)``: per-scene preconditioner, step size,
     ChEES trajectory length, and windowed mass re-estimate).
 
-Why batch scenes instead of looping: a single 80x80 system at 50 chains
-leaves a TPU latency-bound (~64 us/chain/gradient, flat to bs~800 —
-BASELINE.md chain-count scaling), and every per-scene program dispatch pays
-host round-trips. Survey batching fills the chip and shards the flat
+Why batch scenes instead of looping: a single 80x80 system at 50 chains is
+a small program for one device, and every per-scene program dispatch pays
+host round-trips. Survey batching fills the device and shards the flat
 scene-major sample axis over the mesh like any other batch.
 
 All scenes share the camera geometry (one ``SimulatorConfig``) and the model
@@ -160,24 +159,20 @@ class SurveySequence:
         ``ModellingSequence.laplace_scale_tril``: a deterministic
         curvature-based initializer cuts the SVI step budget ~5x and removes
         the step-size-collapse seeds that a half-converged isotropic-init
-        surrogate produces). Runs on the host CPU backend where the (tiny)
-        programs compile locally and persistent-cache; one FD gradient batch
-        covers all scenes (``laplace_scale_trils_survey``)."""
+        surrogate produces). Runs on the default device; one FD gradient
+        batch covers all scenes (``laplace_scale_trils_survey``), on the
+        FFT conv as in ``ModellingSequence.laplace_scale_tril``."""
         import numpy as np
 
         from gigalens_tpu.inference.map import laplace_scale_trils_survey
 
-        cfg = dataclasses.replace(
-            self.sim_config, use_fused_render=False, psf_mode="fft"
-        )
+        cfg = dataclasses.replace(self.sim_config, psf_mode="fft")
         z_best = np.asarray(z_best)
         d = z_best.shape[-1]
-        cpus = jax.devices("cpu")
-        with jax.default_device(cpus[0]):
-            sim = LensSimulator(self.phys_model, cfg, bs=self.n_scenes * 2 * d)
-            L = laplace_scale_trils_survey(
-                self.prob_model, sim, jax.device_put(z_best, cpus[0])
-            )
+        sim = LensSimulator(self.phys_model, cfg, bs=self.n_scenes * 2 * d)
+        L = laplace_scale_trils_survey(
+            self.prob_model, sim, jnp.asarray(z_best)
+        )
         return np.asarray(L)
 
     def SVI(

@@ -18,6 +18,10 @@ from gigalens_tpu.parallel import mesh as pmesh
 from gigalens_tpu.prob.bijectors import FillScaleTriL
 from gigalens_tpu.prob.distributions import MultivariateNormalTriL
 
+# d x d products of the surrogate run in full f32, never TF32: the
+# surrogate preconditions HMC, whose acceptance sees rounding noise
+_HI = jax.lax.Precision.HIGHEST
+
 
 def _run_adam_scan(loss_and_grad, params0, optimizer, num_steps, seed,
                    segment_steps, polyak_fraction, progress, progress_value,
@@ -181,7 +185,7 @@ def fit_svi(
         mean, tril = unpack(qz_params)
         eps = jax.random.normal(key, (n_vi, d))
         eps = pmesh.constrain_samples(eps, mesh)
-        z = mean + eps @ tril.T
+        z = mean + jnp.matmul(eps, tril.T, precision=_HI)
         # Pathwise log q(z(eps)) = -|eps|^2/2 - log det L - d/2 log 2pi.
         # Algebraically identical to q.log_prob(z) but avoids the triangular
         # solve of q's own samples, which is catastrophically ill-conditioned
@@ -278,7 +282,7 @@ def importance_evidence_survey(prob_model, simulator, means, trils,
     @jax.jit
     def _logw(key):
         eps = jax.random.normal(key, (S, n_samples, d))
-        z = means[:, None] + jnp.einsum("snd,sed->sne", eps, trils)
+        z = means[:, None] + jnp.einsum("snd,sed->sne", eps, trils, precision=_HI)
         lp_q = (
             -0.5 * jnp.sum(eps**2, axis=-1)
             - jnp.sum(
@@ -325,7 +329,7 @@ def fit_svi_survey(
     ``(means (S, d), trils (S, d, d), losses (num_steps, S))`` — per-scene
     ELBO loss histories; the scenes' gradients are independent, so joint
     optimization matches S separate fits at the same step budget while
-    keeping the TPU batch full.
+    keeping the device batch full.
     """
     import numpy as np
 
@@ -389,7 +393,7 @@ def fit_svi_survey(
     def elbo_loss(qz_params, key):
         mean, tril = unpack(qz_params)  # (S, d), (S, d, d)
         eps = jax.random.normal(key, (S, n_vi, d))
-        z = mean[:, None] + jnp.einsum("snd,sed->sne", eps, tril)
+        z = mean[:, None] + jnp.einsum("snd,sed->sne", eps, tril, precision=_HI)
         z = pmesh.constrain_samples(z.reshape(S * n_vi, d), mesh)
         lp_q = (
             -0.5 * jnp.sum(eps**2, axis=-1)  # (S, n_vi)

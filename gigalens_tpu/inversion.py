@@ -9,11 +9,11 @@ standard tool for lenses whose sources are too structured for Sersic-like
 models, and it composes with every inference phase here (MAP/SVI/HMC/SMC run
 unchanged on the marginal posterior over the nonlinear parameters).
 
-TPU-first design
-----------------
+Dense, batched design
+---------------------
 The classic implementations build sparse CSR mapping matrices on the host per
 likelihood call (CPU-bound, unvectorizable). Here everything is dense,
-batched, and lands on the MXU:
+batched, and runs as matmuls on the device:
 
   * Ray-traced supersampled image pixels are mapped onto the source grid with
     separable bilinear hat weights — two ``(bs, npix, n_side)`` tensors; the
@@ -142,9 +142,9 @@ def _pick_chunk(n_side: int, max_cols: int = 256) -> int:
 
 # Per-scan-step byte budget for the placed basis-image block
 # (chunk * n_side, bs, h_ss, w_ss) — the peak live intermediate of the
-# mapping build. 128 MB keeps the block VMEM-spillable on TPU and cache-
-# resident on CPU; measured: a bs-blind chunk at bs=32 cost 6x per-sample
-# over bs=8 under reverse-mode AD (the chunk intermediates outgrew memory).
+# mapping build. 128 MB keeps the block cache-resident on CPU; measured: a
+# bs-blind chunk at bs=32 cost 6x per-sample over bs=8 under reverse-mode
+# AD (the chunk intermediates outgrew memory).
 _CHUNK_BYTE_BUDGET = 128 * 2**20
 
 

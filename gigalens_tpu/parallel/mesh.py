@@ -2,14 +2,15 @@
 
 The reference parallelizes with ``jax.pmap`` plus per-step host ``split`` /
 ``concatenate`` (``src/gigalens/jax/inference.py:62-68,109,123-128``). The
-TPU-native replacement is a single :class:`jax.sharding.Mesh` with a
+replacement here is a single :class:`jax.sharding.Mesh` with a
 ``samples`` axis: inputs carry a :class:`NamedSharding` and every jitted step
 is partitioned by XLA's SPMD pass, so cross-device communication (the SVI
-gradient all-reduce) compiles to ICI collectives with no host round-trips.
+gradient all-reduce) compiles to device collectives (NCCL on GPUs) with no
+host round-trips.
 
 The workload is embarrassingly parallel over candidate samples/chains, so a
 1-D mesh is the right default; the helpers accept any mesh whose first axis is
-the sample axis, leaving room for a future ``dcn`` axis for multi-slice.
+the sample axis.
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 The reference (furcelay/gigalens) relies on TFP's event-space bijectors
 (``src/gigalens/jax/model.py:71``) to map unconstrained optimization space onto
-each prior's support. This module is a minimal, TPU-friendly replacement: every
+each prior's support. This module is a minimal, jit-friendly replacement: every
 bijector is a stateless object with ``forward`` (unconstrained -> constrained),
 ``inverse`` and ``forward_log_det_jacobian`` evaluated elementwise.
 

@@ -5,7 +5,7 @@ API surface mirrors the reference interfaces (``src/gigalens/profile.py:5-82``,
 ``deriv(x, y, **params) -> (alpha_x, alpha_y)`` plus ``hessian``,
 ``convergence`` and ``shear``; light profiles expose ``light(x, y, **params)``.
 
-TPU-first differences from the reference:
+Differences from the reference:
   * No per-method ``jit(static_argnums=(0,))`` — methods are pure functions of
     their inputs and the *caller* compiles the whole step, so there is a single
     trace per training step instead of one cache entry per profile method.
@@ -18,7 +18,7 @@ TPU-first differences from the reference:
 Broadcasting convention: coordinates and per-sample parameters only need to be
 mutually broadcastable. The simulator calls profiles with coordinates shaped
 ``(npix,)`` and parameters shaped ``(bs, 1)`` giving batch-leading ``(bs, npix)``
-outputs (pixels last = TPU lane dimension).
+outputs (pixels last, the contiguous dimension).
 """
 from __future__ import annotations
 

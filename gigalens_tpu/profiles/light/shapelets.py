@@ -3,7 +3,7 @@
 Reference: ``src/gigalens/jax/profiles/light/shapelets.py``. The reference has
 two evaluation paths — interpolation of lenstronomy-tabulated basis functions,
 and a Hermite recurrence; only the recurrence survives here (no tables, no
-gather, pure VPU arithmetic — the TPU-friendly path), evaluated with a
+gather, pure elementwise arithmetic), evaluated with a
 ``lax.scan`` over polynomial order.
 
 Basis convention matches the reference: B_i(x, y) = phi_{n1}(u) phi_{n2}(v)
@@ -60,7 +60,7 @@ class Shapelets(LightProfile):
         if interpolate:
             raise NotImplementedError(
                 "table-interpolation path intentionally dropped; the Hermite "
-                "recurrence is exact and faster on TPU"
+                "recurrence is exact and needs no gather"
             )
         self.n_max = int(n_max)
         self.n_layers = (self.n_max + 1) * (self.n_max + 2) // 2

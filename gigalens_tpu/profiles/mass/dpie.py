@@ -12,8 +12,8 @@ Model: difference of two pseudo-isothermal profiles with core radius
 
 The elliptical dPIE deflection is the Kassiola & Kovner complex formula
 J = A * log(u_core/u_cut) evaluated here with explicit (re, im) float pairs —
-complex64 on TPU lowers to the same real arithmetic but blocks some XLA
-fusions, and float pairs keep the whole pipeline in plain f32 vector ops.
+complex64 lowers to the same real arithmetic but can block XLA fusions,
+and float pairs keep the whole pipeline in plain f32 vector ops.
 
 Runtime Hessians for the elliptical dPIE use the package-default forward-mode
 AD of ``deriv`` (exact, and fused by XLA into the same pass); the spherical

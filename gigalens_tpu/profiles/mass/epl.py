@@ -35,34 +35,23 @@ from jax import lax
 
 from gigalens_tpu.profiles.base import MassProfile, ellipticity_to_polar, rotate
 
-
-import os
-
-# scan unroll factor: fuses series iterations (cuts HBM carry traffic at the
-# cost of code size); measured neutral-to-slightly-negative on v5e at the
-# benchmark scale, so default 1 — tunable for other shapes/hardware.
-_UNROLL = int(os.environ.get("GIGALENS_EPL_UNROLL", "1"))
+# The series loops run fully unrolled: unrolled, XLA fuses the whole series
+# into one kernel instead of sending its (bs, npix) carries through device
+# memory on every iteration (likelihood value-and-grad at bs=1000 about 3x
+# faster than unroll=1 on an H100; see docs/kernels.md).
+_UNROLL = True
 
 
-def _omega_cs_impl(cos_t, sin_t, f, t, niter, unroll=None):
+def _omega_cs_impl(cos_t, sin_t, f, t, niter):
     """Raw angular series from (cos theta, sin theta) — see :func:`_omega_cs`.
 
     Taking cos/sin directly (they are algebraic in the ellipse-frame
-    coordinates: cos = q x / R, sin = y / R) keeps the whole series free of
-    inverse-trig evaluations — important inside Pallas kernels, where an
-    approximate ``atan2``'s branch-point derivative discontinuities,
-    amplified by the 1/R^(t-1) prefactor near the lens center, measurably
-    roughen HMC leapfrog energies.
-
-    ``unroll`` overrides the module default; inside Pallas kernels Mosaic
-    supports only ``1`` or full (``niter - 1``), and full keeps the four
-    loop carries in vector registers (measured 2.2x on v5e).
+    coordinates: cos = q x / R, sin = y / R) keeps the series free of
+    inverse-trig evaluations.
     """
     cos_2t = cos_t * cos_t - sin_t * sin_t
     sin_2t = 2.0 * cos_t * sin_t
 
-    # carry-only fori_loop: lowers inside Pallas kernels (Mosaic rejects
-    # scans with scanned-over inputs) and compiles identically under XLA
     def step(i, carry):
         ax, ay, ox, oy = carry
         n = i.astype(cos_t.dtype)
@@ -71,8 +60,7 @@ def _omega_cs_impl(cos_t, sin_t, f, t, niter, unroll=None):
         return (ax, ay, ox + ax, oy + ay)
 
     _, _, ox, oy = lax.fori_loop(
-        1, niter, step, (cos_t, sin_t, cos_t, sin_t),
-        unroll=_UNROLL if unroll is None else unroll,
+        1, niter, step, (cos_t, sin_t, cos_t, sin_t), unroll=_UNROLL
     )
     return ox, oy
 
@@ -102,7 +90,7 @@ def _reduce_to(g, x):
     return g
 
 
-def _omega_cs_bwd(niter, res, ct, unroll=None):
+def _omega_cs_bwd(niter, res, ct):
     """O(1)-memory exact VJP: one fresh loop regenerating a_n on the fly.
 
     a_n is homogeneous of degree 2n+1 in (cos_t, sin_t) — a_n(rho e^{i
@@ -159,7 +147,7 @@ def _omega_cs_bwd(niter, res, ct, unroll=None):
     g_rho0 = ct_x * cos_t + ct_y * sin_t
     _, _, _, g_th, g_rho, g_f, g_t = lax.fori_loop(
         1, niter, step, (cos_t, sin_t, s_t0, g_th0, g_rho0, zero, zero),
-        unroll=_UNROLL if unroll is None else unroll,
+        unroll=_UNROLL,
     )
     g_c = cos_t * g_rho - sin_t * g_th
     g_s = sin_t * g_rho + cos_t * g_th
@@ -170,8 +158,6 @@ def _omega_cs_bwd(niter, res, ct, unroll=None):
 
 
 _omega_cs.defvjp(_omega_cs_fwd, _omega_cs_bwd)
-
-
 
 
 class EPL(MassProfile):

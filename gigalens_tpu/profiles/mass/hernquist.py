@@ -8,7 +8,7 @@ the package. Projected-lensing closed forms follow Keeton (2001,
 astro-ph/0102341 §4); same conventions as lenstronomy's ``HERNQUIST``:
 ``sigma0`` is the characteristic convergence, ``Rs`` the scale radius.
 
-TPU-first structure mirrors :mod:`.nfw`: every piecewise special function is
+The structure mirrors :mod:`.nfw`: every piecewise special function is
 a total ``jnp.where`` with branch-safe inputs, and the x = 1 branch point is
 covered by a two-sided Taylor series (coefficients from sympy), so ``deriv``
 and ``hessian`` are float32-stable and differentiable everywhere — safe

@@ -4,7 +4,7 @@ Formulas from Wright & Brainerd (2000) (NFW g/F special functions) and
 Baltz, Marshall & Oguri (2009) (truncated NFW), as used by the reference
 (``src/gigalens/jax/profiles/mass/nfw.py``, ``tnfw.py``).
 
-TPU-first difference: the reference evaluates the piecewise special functions
+Difference from the reference: the reference evaluates the piecewise special functions
 with boolean-indexed ``.at[].set`` updates (``nfw.py:38-66``) which are
 shape-dynamic and unsafe under ``pjit``; here every piecewise function is a
 total ``jnp.where`` with branch-safe inputs (the "double-where" pattern), so

@@ -5,9 +5,9 @@ of member galaxies shares one profile family; each galaxy's parameters scale
 with its luminosity, ``p_g = scale * (L_g / L_star) ** power[p]``, and the
 total field is the sum over galaxies.
 
-TPU-first design:
+Design:
   * the galaxy axis is a leading broadcast axis ``(bs, g, npix)`` so pixels
-    stay the 128-lane dimension;
+    stay the contiguous dimension;
   * the sum over galaxies runs as a ``lax.scan`` over fixed-size chunks
     (static shapes; memory bounded by ``chunk_size * npix``), with the
     catalogue padded by zero-luminosity galaxies — a padded galaxy's

@@ -1,7 +1,7 @@
 """Phase checkpointing for the inference pipeline.
 
 The reference keeps all phase hand-offs in memory (MAP matrix -> SVI -> HMC,
-SURVEY §5.4); on TPU, preemption is routine, so each phase result can be
+SURVEY §5.4); a long job can be preempted, so each phase result can be
 persisted and the pipeline resumed. Plain ``.npz`` files — the payloads are a
 few small arrays, orbax would be overkill (and its async machinery is for
 sharded model states, not (n, d) matrices).

@@ -36,8 +36,7 @@ def potential_scale_reduction(chains, split: bool = True):
 
 def _autocorrelation(x):
     """Autocorrelation along axis 0 via FFT (numpy: diagnostics are
-    post-processing, and XLA TPU batched FFTs silently corrupt results for
-    batch > ~768 — see ops/psf.py)."""
+    post-processing on the host)."""
     x = np.asarray(x)
     n = x.shape[0]
     x = x - np.mean(x, axis=0, keepdims=True)
@@ -51,7 +50,7 @@ def effective_sample_size(chains, cross_chain: bool = True):
     """ESS with Geyer's initial monotone positive sequence truncation.
 
     ``chains``: (n_steps, n_chains, d) -> (d,) total effective samples.
-    Computed in numpy (post-processing; avoids the TPU batched-FFT bug).
+    Computed in numpy (post-processing on the host).
     """
     chains = np.asarray(chains)
     n, m, d = chains.shape

@@ -1,8 +1,8 @@
 """Cluster-path micro-benchmark: XLA scaling relation vs jet series.
 
 Measures the dPIE member deflection sum (the cluster hot loop) forward and
-forward+gradient, at configurable scale. Run on TPU for real numbers; CPU
-works for sanity with --interpret.
+forward+gradient, at configurable scale. Run on a GPU for real numbers; CPU
+works for sanity with --cpu.
 
     python scripts/bench_cluster.py [--galaxies 200] [--pixels 28800] [--bs 64]
 """

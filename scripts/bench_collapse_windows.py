@@ -2,9 +2,9 @@
 
 Reproduces the collapse observed in the survey demo at quick budgets with an
 isotropic SVI init (scene 2: adapted eps 0.0038, posterior chi2 2.7 — the
-same failure class as the cap-60 trajectory-budget seed in BASELINE.md) and
+same failure class as a cap-60 trajectory-budget seed seen earlier) and
 measures whether extra Stan-style warmup windows (``mass_adaptation=k``)
-recover it. Run on CPU or TPU:
+recover it. Run on CPU or GPU:
 
     python scripts/bench_collapse_windows.py [--cpu] [--windows 1 2 3]
 """

@@ -1,4 +1,4 @@
-"""HMC burn-in budget on the published workload (TPU, fused path).
+"""HMC burn-in budget on the published workload (GPU).
 
 Burn-in (250 steps) is 25% of the chain; with the Laplace-seeded SVI
 surrogate the starting preconditioner is already good, so the windowed mass

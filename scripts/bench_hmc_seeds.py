@@ -1,4 +1,4 @@
-"""HMC seed-variance probe on the published workload (TPU).
+"""HMC seed-variance probe on the published workload (GPU).
 
 Runs MAP+SVI once, then the exact-path HMC phase at several seeds to
 separate real per-gradient cost changes from ChEES/dual-averaging

@@ -1,4 +1,4 @@
-"""HMC trajectory-budget experiment on the benchmark scene (TPU).
+"""HMC trajectory-budget experiment on the benchmark scene (GPU).
 
 Runs MAP+SVI once (round-2 production recipe: Laplace-initialized surrogate,
 300 SVI steps, one dispatch per phase), then the published HMC workload

@@ -1,4 +1,4 @@
-"""SMC benchmark on the published scene (TPU): prior -> beta=1 posterior.
+"""SMC benchmark on the published scene (GPU): prior -> beta=1 posterior.
 
 Runs the adaptive-tempering SMC sampler (the cluster-lens branch's
 alternative to MAP->SVI->HMC) at the reference's default scale
@@ -60,11 +60,10 @@ def main():
     pm = ForwardProbModel(prior, obs, background_rms=0.2, exp_time=100.0)
     seq = ModellingSequence(phys, pm, cfg)
 
-    # Preconditioned-move recipe (CPU-measured, BASELINE.md round-2
-    # continuation): with the per-ensemble particle-covariance mass,
-    # L=3 matches L=5/10 quality at ~1/3 the renders and
-    # ess_threshold_ratio=0.6 cuts the stage count ~1.6x at equal
-    # chi2/logZ. Env overrides keep the old configuration reachable:
+    # Preconditioned-move recipe (CPU-measured in an earlier round): with
+    # the per-ensemble particle-covariance mass, L=3 matches L=5/10
+    # quality at ~1/3 the renders and ess_threshold_ratio=0.6 cuts the
+    # stage count ~1.6x at equal chi2/logZ. Env overrides keep the old configuration reachable:
     # GIGALENS_SMC_L=10 GIGALENS_SMC_THR=0.8 restores the reference-like
     # settings used for the round-1/round-2 table entries.
     L = int(_os.environ.get("GIGALENS_SMC_L", 3))

@@ -1,4 +1,4 @@
-"""Component breakdown of the SVI step cost on the benchmark scene (TPU).
+"""Component breakdown of the SVI step cost on the benchmark scene (GPU).
 
 Times, at the published SVI workload size (n_vi=1000, 80x80 @ ss=2, HST PSF):
   - the full ELBO value_and_grad step (what fit_svi scans)
@@ -80,7 +80,7 @@ def main():
     phys = PhysicalModel([EPL(50), Shear()], [SersicEllipse()], [SersicEllipse()])
     cfg = SimulatorConfig(delta_pix=0.065, num_pix=80, supersample=2, kernel=psf)
     sim = LensSimulator(phys, cfg, bs=n)
-    print(f"n={n} fused={sim._use_fused} psf_mode={sim._conv.mode} "
+    print(f"n={n} psf_mode={sim._conv.mode} "
           f"fshape={getattr(sim._conv, 'fshape', None)}", flush=True)
 
     truth = prior.sample(jax.random.PRNGKey(42), 1)

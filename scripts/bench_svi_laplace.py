@@ -1,4 +1,4 @@
-"""SVI budget with Laplace initialization (TPU).
+"""SVI budget with Laplace initialization (GPU).
 
 The published SVI config (n_vi=1000 x 1500 steps from an isotropic 1e-3
 scale) was tuned for a cold covariance start. `laplace_scale_tril` seeds the

@@ -49,8 +49,6 @@ MODULES = [
     "gigalens_tpu.inference.smc",
     "gigalens_tpu.parallel.mesh",
     "gigalens_tpu.ops.psf",
-    "gigalens_tpu.ops.pallas.fused_render",
-    "gigalens_tpu.ops.pallas.fused_builder",
     "gigalens_tpu.utils.diagnostics",
     "gigalens_tpu.utils.images",
     "gigalens_tpu.utils.summary",

@@ -234,7 +234,7 @@ assert gate_ok, "posterior chi2 outside the acceptance band"
 
 For big member populations, `DPIESubhaloSeries` replaces the per-member
 deflection sums with a **Taylor expansion in the two scaling parameters**
-(coefficients computed once by `jax.experimental.jet`, evaluated as one MXU
+(coefficients computed once by `jax.experimental.jet`, evaluated as one
 matmul). Precompute once, then fits run ~2× faster at `G≈100`+:
 
 ```python
@@ -411,8 +411,8 @@ q = seq_pix.SVI(zb, opt, n_vi=64, num_steps=300)
 res = seq_pix.HMC(q, n_hmc=16, num_burnin_steps=200, num_results=500)
 ```
 
-At `n_side=24`+ run on a TPU — each step is `bs` inversions (basis-image
-convolutions + an MXU Gram matmul). Measured costs: `docs/inversion.md`.
+At `n_side=24`+ run on a GPU — each step is `bs` inversions (basis-image
+convolutions + a Gram matmul). Measured costs: `docs/inversion.md`.
 """),
 ]
 

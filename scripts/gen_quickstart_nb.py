@@ -39,7 +39,7 @@ cells = [
 # gigalens_tpu quickstart
 
 The GIGA-Lens workflow (simulate → multi-start MAP → SVI → preconditioned
-HMC → diagnostics), TPU-native. This notebook mirrors the reference's
+HMC → diagnostics), in JAX. This notebook mirrors the reference's
 `jax-demo.ipynb` cells 3–9; see `docs/quickstart.md` for the prose version
 and `examples/demo_pipeline.py` for the script form.
 """),
@@ -135,7 +135,7 @@ print("best reduced chi2:", float(jnp.nanmin(chi2)))  # expect ~1
 
 The Laplace covariance at the MAP seeds the surrogate with the local
 curvature — 300 steps instead of the published 1500 at equal-or-better
-preconditioner quality (measured; BASELINE.md).
+preconditioner quality (measured in an earlier round).
 """),
     PY("""
 L0 = seq.laplace_scale_tril(best)

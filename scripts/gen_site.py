@@ -21,7 +21,7 @@ OUT = os.path.join(DOCS, "site")
 
 # (source file, nav title); order defines the sidebar
 PAGES = [
-    ("README.md", "GigaLens-TPU"),
+    ("README.md", "gigalens_tpu"),
     ("docs/quickstart.md", "Quickstart"),
     ("docs/overview.md", "Architecture overview"),
     ("docs/model-spec.md", "Model specification"),
@@ -33,7 +33,7 @@ PAGES = [
     ("docs/pointsource.md", "Point sources & time delays"),
     ("docs/survey.md", "Survey / catalogue mode"),
     ("docs/scaling.md", "Scaling & sharding"),
-    ("docs/kernels.md", "TPU kernels"),
+    ("docs/kernels.md", "Kernels"),
     ("docs/migration.md", "Migrating from GIGA-Lens"),
     ("docs/api.md", "API reference"),
 ]
@@ -103,7 +103,7 @@ TEMPLATE = """<!DOCTYPE html>
 </nav>
 <main>
 {body}
-<footer>gigalens_tpu — a TPU-native re-design of GIGA-Lens
+<footer>gigalens_tpu — a JAX/XLA re-design of GIGA-Lens
 (gigalens.github.io). Generated by scripts/gen_site.py.</footer>
 </main>
 </div>

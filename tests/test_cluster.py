@@ -206,7 +206,7 @@ def test_cluster_full_pipeline_smoke(rng):
     """Tiny end-to-end cluster fit: MAP -> Laplace -> SVI -> HMC all finite.
 
     Mirrors examples/demo_cluster.py --series --full (the configuration that
-    produced NaNs from a diverged multi-start row on TPU, see
+    produced NaNs from a diverged multi-start row on an accelerator, see
     inference/map.py::best_start) at smoke scale: series members + NFW halo
     + shapelet source with pixel AND position likelihoods.
     """

@@ -200,7 +200,6 @@ def test_multiplane_pipeline_smoke():
     sim1 = LensSimulator(phys, cfg, bs=1)
     img = np.asarray(jax.jit(sim1.simulate)(truth))
     assert np.all(np.isfinite(img)) and img.max() > 0
-    assert not sim1._use_fused  # fused kernel must not claim multi-plane
 
     obs = img + np.random.default_rng(0).normal(size=img.shape).astype(
         np.float32

@@ -17,21 +17,23 @@ from gigalens_tpu.profiles.mass.shear import Shear
 from gigalens_tpu.simulator import LensSimulator
 
 
-# --------------------------------------------------------------- half_angle
-def test_half_angle_gradient_finite_at_origin():
-    """ADVICE: grad of half_angle at exactly e1=e2=0 must be finite (a user
-    starting MAP/SVI from the prior mean hits this point exactly)."""
-    from gigalens_tpu.ops.pallas._math import half_angle
+# ------------------------------------------------------ ellipticity angle
+def test_ellipticity_to_polar_gradient_finite_at_origin():
+    """ADVICE: the gradient of the ellipse angle and axis ratio at exactly
+    e1=e2=0 must be finite (a user starting MAP/SVI from the prior mean
+    hits this point exactly); the render kernel and the XLA profiles share
+    this function."""
+    from gigalens_tpu.profiles.base import ellipticity_to_polar
 
     def f(e):
-        cp, sp = half_angle(e[0], e[1])
-        return cp + sp
+        _, q, phi = ellipticity_to_polar(e[0], e[1], e_max=1.0)
+        return q + jnp.cos(phi) + jnp.sin(phi)
 
     g = jax.grad(f)(jnp.zeros(2))
     assert np.all(np.isfinite(np.asarray(g)))
-    # value is the identity rotation
-    cp, sp = half_angle(jnp.zeros(()), jnp.zeros(()))
-    assert np.allclose([cp, sp], [1.0, 0.0])
+    # value is the identity rotation of a round profile
+    _, q, phi = ellipticity_to_polar(jnp.zeros(()), jnp.zeros(()))
+    assert np.allclose([q, phi], [1.0, 0.0])
 
 
 # ------------------------------------------------------- TruncatedNormal tails
@@ -202,12 +204,11 @@ def test_fill_triangular_documented_ordering():
 
 # ----------------------------------------- zero-ellipticity gradients (e2e)
 def test_zero_ellipticity_gradients_finite_end_to_end():
-    """The half_angle guard alone was not enough: every consumer of
+    """The ellipse-angle guard alone was not enough: every consumer of
     sqrt(e1^2+e2^2) / arctan2(e2, e1) must also be guarded, or a MAP/SVI
     start from the prior mean (z = 0 -> e1 = e2 = 0 exactly) still produces
-    NaN gradients. Checks the fused render kernel and each elliptical
-    profile through jax.grad."""
-    from gigalens_tpu.ops.pallas.fused_render import fused_render
+    NaN gradients. Checks the EPL+Shear / 2x SersicEllipse render and each
+    elliptical profile through jax.grad."""
     from gigalens_tpu.profiles.light.sersic import SersicEllipse
     from gigalens_tpu.profiles.mass.dpie import DPIE, DPIEP
     from gigalens_tpu.profiles.mass.nfw import NFW_ELLIPSE
@@ -216,13 +217,26 @@ def test_zero_ellipticity_gradients_finite_end_to_end():
     xs = jnp.asarray([0.3, -0.5, 0.8])
     ys = jnp.asarray([0.2, 0.6, -0.4])
 
-    # fused render kernel (interpret mode), all ellipticities zero
-    p0 = jnp.asarray([[1.2, 2.0, 0.0, 0.0, 0.0, 0.0,   # EPL, e=0
-                       0.0, 0.0,                        # shear
-                       1.0, 4.0, 0.0, 0.0, 0.0, 0.0, 500.0,
-                       0.25, 1.5, 0.0, 0.0, 0.0, 0.0, 150.0]])
-    g = jax.grad(lambda p: jnp.sum(fused_render(p, xs, ys, 12, True)))(p0)
-    assert np.all(np.isfinite(np.asarray(g))), "fused render grad NaN at e=0"
+    # the whole render, all ellipticities and centers zero
+    sim = LensSimulator(
+        PhysicalModel([EPL(12), Shear()], [SersicEllipse()], [SersicEllipse()]),
+        SimulatorConfig(delta_pix=0.1, num_pix=4), bs=1)
+    sim.img_x, sim.img_y = xs, ys
+
+    def one(**kw):
+        return {k: jnp.asarray([v], jnp.float32) for k, v in kw.items()}
+
+    p0 = dict(
+        lens_mass=[one(theta_E=1.2, gamma=2.0, e1=0.0, e2=0.0, center_x=0.0,
+                       center_y=0.0), one(gamma1=0.0, gamma2=0.0)],
+        lens_light=[one(R_sersic=1.0, n_sersic=4.0, e1=0.0, e2=0.0,
+                        center_x=0.0, center_y=0.0, Ie=500.0)],
+        source_light=[one(R_sersic=0.25, n_sersic=1.5, e1=0.0, e2=0.0,
+                          center_x=0.0, center_y=0.0, Ie=150.0)],
+    )
+    g = jax.grad(lambda p: jnp.sum(sim._flat_light(p)))(p0)
+    assert all(np.all(np.isfinite(np.asarray(l)))
+               for l in jax.tree_util.tree_leaves(g)), "render grad NaN at e=0"
 
     def check(fn, params):
         grads = jax.grad(

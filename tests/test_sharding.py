@@ -1,7 +1,7 @@
 """Mesh sharding: multi-device execution matches single-device numerics.
 
 Runs on 8 virtual CPU devices (XLA_FLAGS=--xla_force_host_platform_device_count=8
-set in conftest), the test-time stand-in for a v5e-8 ICI mesh.
+set in conftest), the test-time stand-in for a multi-GPU mesh.
 """
 import jax
 import jax.numpy as jnp

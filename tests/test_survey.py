@@ -559,10 +559,10 @@ def test_per_scene_psf_conv_matches_single(mode, pool):
     K = 5
     x = jnp.asarray(rng.normal(size=(2 * K, H, W)).astype(np.float32))
 
-    conv_s = PSFConv(kernels, (H, W), mode=mode, pool=pool, pallas=False)
+    conv_s = PSFConv(kernels, (H, W), mode=mode, pool=pool)
     out = np.asarray(jax.jit(conv_s)(x))
     for s in range(2):
-        conv1 = PSFConv(kernels[s], (H, W), mode=mode, pool=pool, pallas=False)
+        conv1 = PSFConv(kernels[s], (H, W), mode=mode, pool=pool)
         ref = np.asarray(jax.jit(conv1)(x[s * K : (s + 1) * K]))
         np.testing.assert_allclose(out[s * K : (s + 1) * K], ref,
                                    rtol=1e-5, atol=1e-5)
